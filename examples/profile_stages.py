@@ -1,4 +1,4 @@
-"""Fine-grained device timing of every hot-path stage (run on real TPU).
+"""Fine-grained device timing of every hot-path stage (run on the GPU).
 
 Times each jitted sub-stage of the steady-state frame path separately
 (block_until_ready), so optimization effort follows measured cost.

@@ -4,7 +4,7 @@ shaded with the fused voxel colors and a headlight diffuse term.
 
 This is the offline counterpart of the reference's interactive viewer
 (ref: GCFusion/MobileGUI.hpp:17-198 + Shaders/draw_mesh.vert:29-70):
-the GL display loop is scoped out for TPU (SURVEY.md §2), but the same
+the GL display loop is out of scope (SURVEY.md §2), but the same
 "look at the model from anywhere" capability exists as a render batch —
 every frame is one `ops/raycast.raycast_volume` dispatch over the live
 volume, no mesh export in the loop.
@@ -43,13 +43,12 @@ def main():
     ap.add_argument("--voxel", type=float, default=0.03)
     args = ap.parse_args()
 
-    import cv2
-
     from texturefusion_tpu.config import (CameraConfig, PipelineConfig,
                                           TSDFConfig)
     from texturefusion_tpu.core import camera as cam
     from texturefusion_tpu.fusion.chunkmap import TSDFVolume
     from texturefusion_tpu.io import synthetic
+    from texturefusion_tpu.io.image import write_png
     from texturefusion_tpu.ops import preprocess, raycast
 
     camera = CameraConfig(width=320, height=240, fx=260.0, fy=260.0,
@@ -103,8 +102,7 @@ def main():
         shade = np.clip(np.abs(nrm @ fwd), 0.25, 1.0)[..., None]
         img = np.where(hit[..., None], col * shade, 0.08)
         img = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-        cv2.imwrite(os.path.join(args.out, f"turn_{k:03d}.png"),
-                    cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+        write_png(os.path.join(args.out, f"turn_{k:03d}.png"), img)
         hit_fracs.append(float(hit.mean()))
     dt = time.time() - t0
     print(f"rendered {args.frames} novel views in {dt:.1f}s "

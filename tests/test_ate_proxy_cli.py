@@ -1,5 +1,5 @@
-"""End-to-end CLI run over a generated fr1-proxy TUM dataset (VERDICT r4
-next-round #5): associate.txt → pack_frame → pipeline → trajectory.txt →
+"""End-to-end CLI run over a generated fr1-proxy TUM dataset:
+associate.txt → pack_frame → pipeline → trajectory.txt →
 ATE, through `texturefusion_tpu.__main__` — the EXACT path a real TUM
 sequence would take (ref: BasicAPI.cpp:1032-1134, main.cpp:102-317).
 
@@ -12,8 +12,6 @@ import sys
 
 import numpy as np
 import pytest
-
-cv2 = pytest.importorskip("cv2")
 
 pytestmark = pytest.mark.slow
 
@@ -48,8 +46,8 @@ def test_cli_on_fr1_proxy(tmp_path, monkeypatch):
     traj_path = os.path.join(out, "trajectory.txt")
     assert os.path.exists(traj_path)
     from texturefusion_tpu.io import tum
-    est_ts, est = tum._parse_groundtruth(traj_path)
-    gt_ts, gt = tum._parse_groundtruth(os.path.join(root, "groundtruth.txt"))
+    est_ts, est = tum.read_trajectory(traj_path)
+    gt_ts, gt = tum.read_trajectory(os.path.join(root, "groundtruth.txt"))
     pairs = tum.associate_timestamps(est_ts, gt_ts, max_dt=0.05)
     assert len(pairs) >= 8
     ate = tum.ate_rmse(est[[i for i, _ in pairs]], gt[[j for _, j in pairs]])

@@ -1,5 +1,5 @@
-"""Accuracy regression gate over a FROZEN bench-shaped scenario
-(VERDICT r4 next-round #3): every perf change must keep tracking and map
+"""Accuracy regression gate over a FROZEN bench-shaped scenario:
+every perf change must keep tracking and map
 accuracy — nothing else in the suite fails when a latency optimization
 quietly degrades ATE or the fused surface.
 
@@ -39,6 +39,7 @@ def ran():
     from texturefusion_tpu.core import camera as cam
     from texturefusion_tpu.fusion.pipeline import TexturedPipeline
     from texturefusion_tpu.io import synthetic
+    from texturefusion_tpu.io.image import gaussian_blur
     from texturefusion_tpu.ops.preprocess import pack_frame
 
     config = PipelineConfig(
@@ -73,8 +74,7 @@ def ran():
         if EXPOSURE_RANGE[0] <= i < EXPOSURE_RANGE[1]:
             c = np.clip(c * EXPOSURE_GAIN, 0.0, 1.0)
         if i in BLUR_FRAMES:
-            cv2 = pytest.importorskip("cv2")
-            c = cv2.GaussianBlur(c, (0, 0), 3.0)
+            c = gaussian_blur(c, 3.0)
         packed = pack_frame(
             (d * config.camera.depth_scale).astype(np.uint16),
             (c * 255).astype(np.uint8))

@@ -104,7 +104,7 @@ def test_undistort_noop_without_coeffs():
 def test_distorted_registration_recovers_pose():
     """Two views of the same points observed through a DISTORTED camera:
     backprojection via undistorted keypoints must let Kabsch/GN recover
-    the ground-truth relative pose (VERDICT r2 missing #3)."""
+    the ground-truth relative pose."""
     import numpy as np
     from texturefusion_tpu.core import camera as cam
     from texturefusion_tpu.core import se3

@@ -129,6 +129,41 @@ def test_atlas_overflow():
     assert atlas.overflowed
 
 
+def test_export_samples_last_materialized_atlas_row(tmp_path):
+    """A patch in the last materialized band of the row-lazy atlas, with
+    vertices on its bottom edge, samples and exports without indexing
+    past the materialized image."""
+    import types
+
+    from texturefusion_tpu.texture.manager import ChunkTexture, TextureManager
+
+    mgr = TextureManager(CFG)
+    atlas = mgr.atlas
+    rows = atlas.image.shape[0]
+    rgb = np.full((INTR.height, INTR.width, 3), 0.5, np.float32)
+    lo, hi = np.asarray([4.0, 4.0]), np.asarray([40.0, 40.0])
+    chunk = 0
+    while True:     # fill slots until one lands in the last band
+        rec = atlas.add_or_update_patch(chunk, 0, lo, hi, rgb)
+        if atlas._slot_origin(rec.slot_index)[1] + atlas.patch_size == rows:
+            break
+        chunk += 1
+    assert atlas.image.shape[0] == rows      # still un-grown
+    uv_img = np.asarray([[4.0, 4.0], [40.0, 40.0], [22.0, 40.0]])
+    tex = ChunkTexture()
+    tex.atlas_uv = atlas.atlas_uv(chunk, uv_img)
+    mgr.chunk_tex[chunk] = tex
+    verts = np.zeros((3, 3), np.float32)
+    faces = np.asarray([[0, 1, 2]], np.int32)
+    mesher = types.SimpleNamespace(meshes={chunk: (
+        verts, faces, np.zeros((3, 3), np.float32),
+        np.zeros((3, 3), np.float32))})
+    samples = mgr._sample_atlas(tex.atlas_uv)
+    np.testing.assert_allclose(samples, 128 / 255.0, atol=1 / 255.0)
+    obj = mgr.export_textured(mesher, str(tmp_path))
+    assert open(obj).read().count("\nf ") == 1
+
+
 # ----------------------------------------------------------------- full
 
 

@@ -15,7 +15,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# 3x3/4x4 pose algebra must not run at TPU bf16 matmul default precision.
+# 3x3/4x4 pose algebra must not run at a reduced default matmul precision
+# (TF32 on the GPU keeps ~3 decimal digits).
 _PREC = jax.lax.Precision.HIGHEST
 
 _EPS = 1e-8

@@ -1,6 +1,6 @@
 """End-to-end reconstruction pipeline: tracking + fusion + meshing (+texture).
 
-TPU-native re-design of MobileFusion + the main loop
+JAX re-design of MobileFusion + the main loop
 (ref: GCFusion/MobileFusion.{h,cpp} — tsdfFusion :274-406,
 ReIntegrateKeyframe :114-221, IntegrateFrame :223-250,
 clearRedudentFrameMemory :71-90, updateGlobalMap/MapManagement :92-112;
@@ -105,13 +105,10 @@ class ReconstructionPipeline:
             # chunk-slot axis partitioned over the device mesh: the SAME
             # integrate/mesh programs run sharded, XLA inserting the
             # neighbor-gather collectives (SURVEY.md §2.3)
-            import jax as _jax
-            if len(_jax.devices()) > 1:
-                from texturefusion_tpu.parallel import mesh as pmesh
-                m = pmesh.make_mesh(config.parallel.n_devices,
-                                    axis=config.parallel.data_axis)
-                sharding = pmesh.shard_leading(
-                    m, config.parallel.data_axis)
+            from texturefusion_tpu.parallel import mesh as pmesh
+            m = pmesh.make_mesh(config.parallel.n_devices,
+                                axis=config.parallel.data_axis)
+            sharding = pmesh.shard_leading(m, config.parallel.data_axis)
         self.volume = TSDFVolume(config, sharding=sharding)
         self.mesher = IncrementalMesher(self.volume)
         self.streamer = None
@@ -271,7 +268,7 @@ class ReconstructionPipeline:
                         self.config.tracking, self.config.camera.depth_scale)
                 fused_kf = (f_depth, f_weight)
                 self._kp_prev = kp
-                # absorb the fetch RTT on the helper thread
+                # the readback lands on the helper thread
                 from texturefusion_tpu.utils.async_fetch import fetch_async
                 if _FETCH_TRACE:
                     import threading as _th
@@ -515,7 +512,7 @@ class ReconstructionPipeline:
         kf_id = st.kf_slot
         if sign < 0 and st.integrated_slots is not None:
             # de-integration must touch EXACTLY the integrated chunk set;
-            # reusing it also skips the discovery fetch RTT
+            # reusing it also skips the discovery fetch
             slots = st.integrated_slots
         else:
             with STOPWATCH.time("i_disco"):
@@ -585,7 +582,7 @@ class ReconstructionPipeline:
         With parallel.async_cycle_results (the default), the cycle first
         CONSUMES the previous cycle's deferred results, then only
         DISPATCHES this cycle's device work and starts the copies — the
-        fusion thread never blocks on the link."""
+        fusion thread never blocks on a readback."""
         async_mode = self.config.parallel.async_cycle_results
         if async_mode:
             self._consume_cycle_results()
@@ -797,7 +794,7 @@ class ReconstructionPipeline:
         camera file holds the world-to-camera pose row-major + intrinsics."""
         import os
 
-        import cv2
+        from texturefusion_tpu.io.image import write_png
 
         os.makedirs(out_dir, exist_ok=True)
         n = 0
@@ -808,9 +805,7 @@ class ReconstructionPipeline:
                 vals = list(w2c[:3].reshape(-1)) + [
                     self.intr.fx, self.intr.fy, self.intr.cx, self.intr.cy]
                 f.write(" ".join(f"{v:.8f}" for v in vals) + "\n")
-            img = st.rgb_np()
-            cv2.imwrite(os.path.join(out_dir, f"{slot:06d}.png"),
-                        cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            write_png(os.path.join(out_dir, f"{slot:06d}.png"), st.rgb_np())
             n += 1
         return n
 

@@ -5,7 +5,8 @@ streaming"): the device slot pool is finite; chunks far from the camera
 are offloaded to host memory and their slots recycled, then restored
 transparently when the camera revisits. The reference has no equivalent
 (its chunk map lives in CPU RAM and is bounded only by the machine);
-on TPU this is what keeps HBM bounded while the map grows without limit.
+here it is what keeps device memory bounded while the map grows without
+limit.
 """
 
 from __future__ import annotations

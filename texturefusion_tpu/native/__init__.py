@@ -1,9 +1,10 @@
 """Native (C++) host-runtime components, built lazily with g++ + ctypes.
 
-The reference's host runtime is all C++ (SURVEY.md); the TPU framework
+The reference's host runtime is all C++ (SURVEY.md); this framework
 keeps its *hot host paths* native too: the chunk-slot allocator /
-candidate-ID deduplicator (chunk_alloc.cpp). Python fallbacks exist for
-environments without a toolchain.
+candidate-ID deduplicator (chunk_alloc.cpp) and PNG scanline
+unfiltering for the image reader (png_unfilter.cpp). Python fallbacks
+exist for environments without a toolchain.
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ _tried = False
 
 
 def _build() -> Optional[str]:
-    src = os.path.join(_DIR, "chunk_alloc.cpp")
+    srcs = [os.path.join(_DIR, f) for f in ("chunk_alloc.cpp",
+                                            "png_unfilter.cpp")]
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
-    if (os.path.exists(_LIB_PATH)
-            and os.path.getmtime(_LIB_PATH) >= os.path.getmtime(src)):
+    if (os.path.exists(_LIB_PATH) and os.path.getmtime(_LIB_PATH)
+            >= max(os.path.getmtime(s) for s in srcs)):
         return _LIB_PATH
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           src, "-o", _LIB_PATH]
+           *srcs, "-o", _LIB_PATH]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         return _LIB_PATH
@@ -59,5 +61,7 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.ca_release.argtypes = [p, ctypes.c_void_p, i64]
     lib.ca_export.argtypes = [p, ctypes.c_void_p, ctypes.c_void_p]
     lib.ca_import.argtypes = [p, ctypes.c_void_p, ctypes.c_void_p, i64]
+    lib.png_unfilter.restype = ctypes.c_int32
+    lib.png_unfilter.argtypes = [p, i64, i64, i64, p]
     _lib = lib
     return _lib

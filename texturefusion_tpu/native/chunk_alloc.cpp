@@ -2,7 +2,7 @@
 //
 // Replaces the role of open_chisel's ChunkMap spatial hash
 // (ref: Structure/ChunkManager.h:44-119 ChunkHasher + ChunkMap) for the
-// slot-indexed TPU design: the device holds dense [capacity, 512] arrays;
+// slot-indexed device design: the device holds dense [capacity, 512] arrays;
 // this maps integer chunk IDs -> slot with a free list, and deduplicates
 // the per-frame candidate-ID stream (the host-side hot path: ~1.5M IDs
 // per VGA frame at stride 1).

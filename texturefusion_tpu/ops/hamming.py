@@ -1,10 +1,10 @@
 """Binary-descriptor Hamming matching as batched XLA integer ops.
 
-TPU-native replacement for MILD's multi-index hashing machinery
+Batched replacement for MILD's multi-index hashing machinery
 (ref: GCSLAM/MILD/mild.hpp:33-104 multi_index_hashing,
 sparse_match.hpp:160-276 SparseMatcher, loop_closure_detector.hpp:314-324
 256-bit popcount Hamming): at ≤1024 descriptors per frame, exact all-pairs
-Hamming distance is a single XOR+popcount broadcast on the VPU — the
+Hamming distance is a single XOR+popcount broadcast — the
 hash-table candidate pruning the reference needs on CPU is unnecessary
 (SURVEY.md §7 phase 2). The *behavior* is preserved: best-match with
 distance threshold, optional location-constrained search

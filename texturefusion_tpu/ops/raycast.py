@@ -3,7 +3,7 @@
 Replaces open_chisel's DDA raycaster (ref: open_chisel/geometry/
 Raycast.cpp) and stands in for the reference's OpenGL visualization
 (ref: Shaders/draw_mesh.vert/frag + MobileShow MobileFusion.h:318-514)
-with an offline, TPU-side renderer: sphere-trace every camera ray through
+with an offline, device-side renderer: sphere-trace every camera ray through
 the trilinear-interpolated TSDF. Useful for verification (render the map
 from any pose and compare against input frames) and for debugging
 reconstruction quality without a GL stack.

@@ -1,6 +1,6 @@
 """TSDF voxel-update kernels: projective integration / de-integration.
 
-TPU-native re-design of open_chisel's AVX2 voxel kernel
+JAX re-design of open_chisel's AVX2 voxel kernel
 (ref: 3rd_party/open_chisel/utils/ProjectionIntegrator.cpp:67-426
 voxelUpdateSIMD; quadratic truncator
 3rd_party/open_chisel/truncation/QuadraticTruncator.h:45-48).
@@ -191,8 +191,8 @@ def candidate_chunk_coords(
     return ids, mask
 
 
-# Chunk-ID sort keys are packed 3×10 bits into int32 (x64 is disabled on
-# TPU): chunk coords must lie in ±512, i.e. maps up to ±512·chunk_extent
+# Chunk-ID sort keys are packed 3×10 bits into int32 (x64 is disabled):
+# chunk coords must lie in ±512, i.e. maps up to ±512·chunk_extent
 # (±82m at 2cm voxels). Larger scenes should re-base chunk IDs around a
 # moving map origin.
 _KEY_BITS = 10
@@ -216,7 +216,7 @@ def candidate_chunks_unique(
     The raw candidate stream is ~1.5M IDs per VGA frame; transferring it
     to the host costs more than the whole voxel update. Here IDs are
     packed to int64 keys, sorted on device, compacted to the unique
-    prefix, and only [max_out, 3] ids + a count cross the link.
+    prefix, and only [max_out, 3] ids + a count are read back.
     Returns (ids [max_out, 3] int32, n_unique scalar). Overflow beyond
     max_out is dropped (callers can check n_unique == max_out).
     """

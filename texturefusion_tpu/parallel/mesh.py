@@ -1,10 +1,11 @@
-"""Device-mesh helpers for multi-chip / multi-host scale-out.
+"""Device-mesh helpers for multi-device / multi-host scale-out.
 
 The reference has no distributed backend at all (SURVEY.md §2.3 — its
 entire concurrency model is two boost threads + parallel_for). This layer
 is the new capability: TSDF chunk slots and BA edges are sharded over a
-1-D device mesh; collectives ride ICI via psum/all_gather inserted by XLA
-under shard_map/pjit.
+1-D mesh of the first n devices; XLA inserts the psum/all_gather
+collectives under shard_map/pjit. The cards of one host reach each other
+all to all at one rate, so the mesh follows the algorithm alone.
 
 Multi-host: call `init_distributed()` (jax.distributed.initialize) before
 building meshes; the same code then spans hosts over DCN.
@@ -20,8 +21,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = "shard") -> Mesh:
+    """1-D mesh over the first `n_devices` devices (all when None);
+    raises when fewer devices exist than asked for."""
     devs = jax.devices()
     if n_devices is not None:
+        if n_devices > len(devs):
+            raise ValueError(f"asked for {n_devices} devices, "
+                             f"{len(devs)} available")
         devs = devs[:n_devices]
     return Mesh(np.asarray(devs), (axis,))
 

@@ -1,6 +1,6 @@
 """Batched FAST + oriented-binary-descriptor feature extraction.
 
-TPU-native equivalent of the reference's ORB-SLAM2 extractor driver
+JAX equivalent of the reference's ORB-SLAM2 extractor driver
 (ref: GCSLAM/ORBSLAM/ORBextractor.{h,cpp} — 8-level pyramid, scale 1.2,
 FAST threshold 20, octree keypoint distribution, IC-angle orientation,
 256-bit binary descriptors; driven from BasicAPI.cpp:175-279
@@ -74,7 +74,7 @@ def fast_score(gray: jnp.ndarray, threshold: float) -> jnp.ndarray:
     """FAST-9/16 corner response for every pixel (0 for non-corners).
 
     The 16 circle samples are bit-packed into one int32 per pixel so the
-    "contiguous arc ≥ 9" test becomes 16 shift/mask compares on the VPU
+    "contiguous arc ≥ 9" test becomes 16 shift/mask compares
     instead of 144 boolean-array ANDs (the popcnt-style trick the
     reference's AVX path plays with movemask)."""
     bits_b = jnp.zeros(gray.shape, jnp.int32)
@@ -142,7 +142,7 @@ def _extract_patches(blur: jnp.ndarray, vy: jnp.ndarray,
 
     One batched gather instead of per-keypoint work: everything
     downstream (orientation, descriptor taps) then runs on [K, 1024]
-    on-chip data — the TPU answer to the reference's per-keypoint
+    contiguous data — the batched answer to the reference's per-keypoint
     IC_Angle/descriptor loops (ref: ORBextractor.cpp)."""
     y0 = vy.astype(jnp.int32) - _PATCH_C
     x0 = vx.astype(jnp.int32) - _PATCH_C

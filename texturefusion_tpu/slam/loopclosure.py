@@ -1,12 +1,12 @@
 """Loop-closure candidate scoring: batched Hamming similarity + salience.
 
-TPU-native equivalent of MILD's LoopClosureDetector + BayesianFilter
+JAX equivalent of MILD's LoopClosureDetector + BayesianFilter
 (ref: GCSLAM/MILD/loop_closure_detector.hpp:56-231 — 16-table multi-index
 hashing with Gaussian-of-Hamming similarity LUT exp(−d²/900) :100-109 and
 IDF weighting :214-228; BayesianFilter.hpp:31-91 calculateSalientScore;
 driven from GCSLAM.cpp:6-50 select_closure_candidates).
 
-On TPU the hash tables are unnecessary: each keyframe keeps a fixed
+On the device the hash tables are unnecessary: each keyframe keeps a fixed
 random subsample of its descriptors, and a query frame scores against ALL
 keyframes with one [Q, K·S] XOR+popcount broadcast — exact where MILD is
 approximate. The similarity and salience formulas keep the reference's
@@ -41,7 +41,7 @@ class KeyframeDescriptorDB:
         valid-first). The reference gates insertion on reg_success_cnt < 4
         (ref: GCSLAM.cpp:171-177) — callers enforce that. The valid-first
         partition runs ON DEVICE: fetching the valid mask here cost one
-        blocking link RTT per keyframe on the tracking thread."""
+        blocking readback per keyframe on the tracking thread."""
         k = len(self.kf_ids)
         if k >= self.max_kf:
             return

@@ -20,6 +20,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from texturefusion_tpu.config import TextureConfig
+from texturefusion_tpu.io.image import resize_bilinear, write_png
 
 
 @dataclasses.dataclass
@@ -80,9 +81,7 @@ class Atlas:
         else:
             roi = (np.clip(kf_rgb[y0:y1, x0:x1] * 255.0, 0, 255)
                    ).astype(np.uint8)
-        import cv2
-        tile = cv2.resize(roi, (self.patch_size, self.patch_size),
-                          interpolation=cv2.INTER_LINEAR)
+        tile = resize_bilinear(roi, self.patch_size, self.patch_size)
         ox, oy = self._slot_origin(rec.slot_index)
         self._ensure_rows(oy + self.patch_size)
         self.image[oy:oy + self.patch_size, ox:ox + self.patch_size] = tile
@@ -138,7 +137,6 @@ class Atlas:
         colors to the `v` records (widely-read OBJ extension) — the
         per-vertex quantity the reference feeds its shader
         (ref: Chisel.cpp:270-284)."""
-        import cv2
         os.makedirs(out_dir, exist_ok=True)
         png = os.path.join(out_dir, f"{name}.png")
         # export only the USED rows (patch slots fill top rows first) and
@@ -149,8 +147,7 @@ class Atlas:
             h_used = max(self._slot_origin(r.slot_index)[1]
                          + self.patch_size for r in self.patches.values())
         h_used = max(min(h_used, self._rows), self.patch_size)
-        cv2.imwrite(png, cv2.cvtColor(
-            np.ascontiguousarray(self.image[:h_used]), cv2.COLOR_RGB2BGR))
+        write_png(png, self.image[:h_used])
         if len(atlas_uvs):
             atlas_uvs = atlas_uvs.copy()
             # uv v was normalized against the full logical size:

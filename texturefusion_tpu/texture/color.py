@@ -1,6 +1,6 @@
 """Global color compensation: covariance-matched linear color transfer.
 
-TPU-native re-design of Chisel::CompensateColor
+Batched re-design of Chisel::CompensateColor
 (ref: Structure/Chisel.cpp:198-286 — cluster patches by keyframe id,
 compute mean/covariance of sampled texture colors vs fused voxel colors,
 build the eigendecomposition-based transfer T :250-268, and emit
@@ -52,8 +52,11 @@ def transfer_matrices(mean_tex: jnp.ndarray, cov_tex: jnp.ndarray,
     def one(ct, cv):
         lt, ut = jnp.linalg.eigh(ct + eps * jnp.eye(3))
         lv, uv = jnp.linalg.eigh(cv + eps * jnp.eye(3))
-        sqrt_v = (uv * jnp.sqrt(jnp.maximum(lv, eps))[None, :]) @ uv.T
-        inv_sqrt_t = (ut * (1.0 / jnp.sqrt(jnp.maximum(lt, eps)))[None, :]) @ ut.T
+        sqrt_v = jnp.matmul(uv * jnp.sqrt(jnp.maximum(lv, eps))[None, :],
+                            uv.T, precision=_PREC)
+        inv_sqrt_t = jnp.matmul(
+            ut * (1.0 / jnp.sqrt(jnp.maximum(lt, eps)))[None, :], ut.T,
+            precision=_PREC)
         return jnp.matmul(sqrt_v, inv_sqrt_t, precision=_PREC)
 
     return jax.vmap(one)(cov_tex, cov_vox)

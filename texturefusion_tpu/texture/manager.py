@@ -270,18 +270,24 @@ class TextureManager:
         # exact inverse of Atlas.atlas_uv's /size normalization (a *(sz-1)
         # scale here would shift samples up to ~1 texel for tiles far from
         # the atlas origin and bleed neighboring patches' texels)
+        # the image is row-lazy: clamp rows to the MATERIALIZED height
         sz = self.atlas.size
+        y_max = self.atlas.image.shape[0] - 1
         x = np.clip(uv[:, 0] * sz, 0, sz - 1)
-        y = np.clip((1.0 - uv[:, 1]) * sz, 0, sz - 1)
+        y = np.clip((1.0 - uv[:, 1]) * sz, 0, y_max)
         x0 = np.floor(x).astype(np.int64)
         y0 = np.floor(y).astype(np.int64)
         x1 = np.minimum(x0 + 1, sz - 1)
-        y1 = np.minimum(y0 + 1, sz - 1)
+        y1 = np.minimum(y0 + 1, y_max)
         fx = (x - x0)[:, None]
         fy = (y - y0)[:, None]
-        img = self.atlas.image.astype(np.float32) / 255.0
-        return ((img[y0, x0] * (1 - fx) + img[y0, x1] * fx) * (1 - fy)
-                + (img[y1, x0] * (1 - fx) + img[y1, x1] * fx) * fy)
+        img = self.atlas.image     # uint8: convert only the sampled texels
+
+        def tex(yy, xx):
+            return img[yy, xx].astype(np.float32) / 255.0
+
+        return ((tex(y0, x0) * (1 - fx) + tex(y0, x1) * fx) * (1 - fy)
+                + (tex(y1, x0) * (1 - fx) + tex(y1, x1) * fx) * fy)
 
     def export_textured(self, mesher, out_dir: str, name: str = "model") -> str:
         """Textured OBJ+MTL+PNG of all patched chunks with PER-VERTEX

@@ -1,6 +1,6 @@
 """Texture patches: projecting chunk meshes into their selected keyframes.
 
-TPU-native re-design of Patch/Chisel patch generation
+JAX re-design of Patch/Chisel patch generation
 (ref: Structure/Patch.cpp:40-108 CalculateTexCoords — project mesh
 vertices into the chosen keyframe, texcoords + bbox; :88-96 wrong-mapping
 detection (>30% of vertices with color Δ>0.6 or depth Δ>0.7);
@@ -22,6 +22,8 @@ import numpy as np
 from texturefusion_tpu.config import TextureConfig
 from texturefusion_tpu.core import camera as cam
 from texturefusion_tpu.core import se3
+
+_PREC = jax.lax.Precision.HIGHEST
 
 
 class IncrementalCycleOut(NamedTuple):
@@ -147,8 +149,9 @@ def texture_cycle_incremental(
                   < jnp.take(pool_vcount, csl)[:, None])
     kfr = jnp.clip(kf_new[rows], 0, k - 1)                        # [M]
     w2c = se3.inverse(kf_poses)[kfr]
-    pts_cam = jnp.einsum("uij,upj->upi", w2c[:, :3, :3], verts) \
-        + w2c[:, None, :3, 3]
+    # full f32: a TF32 product is ~2 mm off at 2 m, about half a pixel
+    pts_cam = jnp.einsum("uij,upj->upi", w2c[:, :3, :3], verts,
+                         precision=_PREC) + w2c[:, None, :3, 3]
     uv, z = cam.project(intr, pts_cam)
     ok = vert_valid & cam.in_image(intr, uv, margin=1.0) \
         & (z > intr.near) & row_ok[:, None]
@@ -184,10 +187,11 @@ def texture_cycle_incremental(
 
     wgt = (ok & ~wrong[:, None]).astype(jnp.float32)              # [M, P]
     s_n = jnp.sum(wgt, axis=1)
-    s_t = jnp.einsum("mp,mpc->mc", wgt, tex)
-    s_v = jnp.einsum("mp,mpc->mc", wgt, vert_color)
-    s_tt = jnp.einsum("mp,mpc,mpd->mcd", wgt, tex, tex)
-    s_vv = jnp.einsum("mp,mpc,mpd->mcd", wgt, vert_color, vert_color)
+    s_t = jnp.einsum("mp,mpc->mc", wgt, tex, precision=_PREC)
+    s_v = jnp.einsum("mp,mpc->mc", wgt, vert_color, precision=_PREC)
+    s_tt = jnp.einsum("mp,mpc,mpd->mcd", wgt, tex, tex, precision=_PREC)
+    s_vv = jnp.einsum("mp,mpc,mpd->mcd", wgt, vert_color, vert_color,
+                      precision=_PREC)
     stat_rows = jnp.concatenate(
         [s_n[:, None], s_t, s_v, s_tt.reshape(-1, 9), s_vv.reshape(-1, 9)],
         axis=1)                                                   # [M, 25]
